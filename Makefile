@@ -2,15 +2,13 @@
 
 PY ?= python
 
-.PHONY: test test-heavy test-all test-matrix bench tune device smoke clean
+.PHONY: test test-heavy test-all test-gpu test-matrix bench chip-smoke tune smoke clean
 
-test:            ## smoke tier: <5-min guard rail (CPU, 8-virtual-device mesh)
-	         ## measured 2026-08-21 solo on the 1-core dev box: 4:27
-	         ## (209 passed; heaviest golden variants ride test-heavy)
+test:            ## smoke tier: the CPU guard rail (8-virtual-device mesh)
 	XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
 	  $(PY) -m pytest tests/ -q
 
-test-heavy:      ## + multi-minute compile/e2e tests (mesh engine, big shapes)
+test-heavy:      ## + multi-minute compile/e2e tests
 	XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
 	  $(PY) -m pytest tests/ -q --run-heavy
 
@@ -18,17 +16,20 @@ test-all:        ## everything incl. the slow golden runs
 	XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
 	  $(PY) -m pytest tests/ -q --run-slow
 
-test-matrix:     ## backend x arithmetic x mode residue/factor cross-check
-	PRMERS_PLATFORM=cpu $(PY) tools/validation_matrix.py standard matrix.tsv
+test-gpu:        ## the tests marked gpu, on the card
+	JAX_PLATFORMS=cuda $(PY) -m pytest -m gpu tests/ -q
 
-bench:           ## headline PRP iter/s JSON line (device)
+test-matrix:     ## backend x arithmetic x mode residue/factor cross-check
+	JAX_PLATFORMS=cpu $(PY) tools/validation_matrix.py standard matrix.tsv
+
+bench:           ## headline PRP iter/s JSON line (GPU)
 	$(PY) bench.py
+
+chip-smoke:      ## main path at full width on one GPU, then goldens
+	$(PY) chip_smoke.py
 
 tune:            ## measure + persist per-size rates (device)
 	$(PY) -m prmers_tpu -tune
-
-device:          ## full on-device validation + bench ladder
-	bash tools/device_run.sh full
 
 smoke:           ## first-GL-window ladder (device or CPU with a cap)
 	$(PY) tools/gl_smoke.py

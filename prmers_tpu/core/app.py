@@ -76,8 +76,7 @@ def run_once(opts: Options, log=print, gui=None) -> tuple[object, str]:
         raise SystemExit(
             f"Exponent {opts.exponent} out of range: the largest "
             f"supported transform (5*2^26) caps at {MAX_EXPONENT}")
-    configure_backend(opts.backend if opts.backend != "auto" else "auto",
-                      opts.mode)
+    configure_backend(opts.backend)
     from .profile import report_all, set_profiling
     set_profiling(bool(getattr(opts, "profile", False)))
     _log_arith_decision(opts, log, gui)
@@ -104,6 +103,8 @@ def _run_once_inner(opts: Options, log=print, gui=None):
                                  save_dir=opts.save_dir,
                                  known_factors=opts.known_factors)
         r = run_prp_or_ll(opts, proof_set=proof_set, log=log)
+        if r.interrupted:
+            return r, ""        # state is checkpointed; no result yet
         proof_md5 = ""
         proof_power = 0
         if proof_set is not None and not r.interrupted and not r.quick:
@@ -255,6 +256,8 @@ def run_app(opts: Options, log=print) -> int:
                     gui.set_state(status="running", exponent=opts.exponent,
                                   mode=opts.mode)
                 r, j = run_once(opts, log=log, gui=gui)
+                if getattr(r, "interrupted", False):
+                    return 1    # the entry stays queued for the resume
                 if j:
                     append_results_txt(opts.results_path, j)
                     write_individual_json(opts.save_dir, opts.exponent,

@@ -6,9 +6,8 @@ with both numpy (host precompute) and jax.numpy (device compute).
 
 Semantics mirror the reference host field ops (reference: include/marin/arith.h:23-99)
 but are re-derived from the mathematics of the Solinas prime; the vectorized
-u64 code paths are built from 32-bit half-word products so the same algorithm
-lowers to TPU (XLA emulates u64 with 32-bit lane pairs; Pallas kernels use the
-explicit 32-bit form directly).
+u64 code paths are built from 32-bit half-word products, so the 128-bit
+product never needs a wider type than XLA's u64.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Quadratic-extension fields GF(q^2) for q in {M31, M61} — the second
-arithmetic path ("fft3161"), the TPU analog of the reference's Aevum
+arithmetic path ("fft3161"), the analog of the reference's Aevum
 GF(M31^2) x GF(M61^2) paired integer NTT (reference: third_party/aevum/
 src/cl/math.cl:618-640 Mersenne folds, FFTConfig.h FFT3161 type).
 

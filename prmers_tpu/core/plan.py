@@ -1,7 +1,7 @@
 """IBDWT transform planning for Mersenne arithmetic mod M_p = 2^p - 1.
 
 Computes the transform size, variable digit widths, and the two-pass (matrix)
-NTT decomposition used by the TPU compute path. The Plan is pure metadata;
+NTT decomposition used by the device engines. The Plan is pure metadata;
 the big per-element tables (weights, twiddles) are generated vectorized in
 the target array namespace by ops/ntt.py (on-device for the JAX engine).
 
@@ -11,11 +11,11 @@ Semantics parity with the reference planner (reference: include/marin/ibdwt.h:17
   * digit widths: width[j] = ceil(p*(j+1)/n) - ceil(p*j/n)  (values w or w+1)
   * weights: weight[j] = nr2^((n - (p*j mod n)) mod n), nr2^n == 2.
 
-The NTT decomposition is TPU-native and intentionally different from the
-reference's radix-kernel dispatch tables: the length-n transform is an (R, C)
-matrix four-step NTT (column pass, factored mid-twiddles, transpose, column
-pass), which maps onto lane-parallel columns and ICI all-to-all transposes
-when sharded.
+The NTT decomposition is intentionally different from the reference's
+radix-kernel dispatch tables: the length-n transform is an (R, C) matrix
+four-step NTT (column pass, factored mid-twiddles, transpose, column pass),
+whose column passes are batched array ops and whose transposes become
+all-to-alls when sharded.
 """
 
 from __future__ import annotations
@@ -124,8 +124,8 @@ def freq_of_pos(length: int) -> np.ndarray:
 def _split_rc(n: int) -> tuple[int, int]:
     """Factor n = R*C. The odd factor 5 goes to R; C is a power of two >= 2.
 
-    R is the first-pass column-transform length (kept modest so a Pallas
-    kernel can hold an R x 128 tile in VMEM); C is the lane-parallel width.
+    R is the first-pass column-transform length (kept modest); C is the
+    width the column passes are batched over.
     """
     if n % 5 == 0:
         m = n // 5

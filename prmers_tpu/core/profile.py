@@ -4,7 +4,7 @@ The reference collects per-kernel execution times from an OpenCL profiling
 queue and prints an aggregate map at exit (reference: include/marin/ocl.h
 :238-310 `profile` struct + `-profile` flag, README.md:313). XLA dispatch
 is asynchronous, so per-call wall clocks only measure enqueue cost; this
-TPU redesign therefore combines
+redesign therefore combines
   * exact op COUNTS gathered during the run (free), with
   * a calibration pass at report time: each hot op is re-run a few times
     sync-bracketed to get honest ms/op at the run's transform size.

@@ -3,7 +3,7 @@
 Analog of the reference's LRU host-paging engine for huge register-count
 workloads (reference: include/marin/engine_gpu.h:2172-2644 `engine_gpu` —
 logical regs spill to host `_backing` vectors, `_logical_to_slot` +
-`_slot_clock` LRU). TPU version: wraps ANY inner Engine whose reg_count is
+`_slot_clock` LRU). Here: wraps ANY inner Engine whose reg_count is
 the device slot budget; cold registers live as host numpy arrays and move
 via get_raw/set_raw (device_put/get streams underneath the jax engines).
 
@@ -180,14 +180,36 @@ class PagedEngine(Engine):
         self.inner.set_raw_tagged(s, data, spectral)
 
 
-def device_reg_budget(n: int, hbm_bytes: int | None = None) -> int:
+def device_memory_bytes(device=None) -> int:
+    """Bytes the device's allocator may hand out.
+
+    A GPU reports its pool in memory_stats()["bytes_limit"]. The CPU
+    backend reports no stats; its registers live in host memory, so the
+    host's physical memory is the limit. Any other device without a
+    limit is an error, not a guess."""
+    import os
+
+    from .. import jaxconf  # noqa: F401
+    import jax
+    dev = device if device is not None else jax.devices()[0]
+    stats = dev.memory_stats() or {}
+    if stats.get("bytes_limit"):
+        return int(stats["bytes_limit"])
+    if dev.platform == "cpu":
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    raise RuntimeError(f"device {dev.device_kind!r} reports no memory "
+                       "limit; pass -memlim")
+
+
+def device_reg_budget(n: int, hbm_bytes: int | None = None,
+                      device=None) -> int:
     """How many n-word u64 registers fit the device.
 
     Tables (weights/masks/widths/mids ~ 5 register-equivalents) and XLA
-    transform temporaries (~4 more) are charged as a fixed overhead of 9
-    register-equivalents, so huge transforms get a genuinely small slot
-    count instead of OOMing (measured: n=5*2^25 needs <= 3 slots on a
-    16 GB v5e)."""
+    transform temporaries are charged as a fixed overhead, so huge
+    transforms get a small slot count instead of running out of memory.
+    The memory comes from -memlim (PRMERS_MEMLIM_MB) when set, else from
+    the device itself (device_memory_bytes)."""
     import os
     env = os.environ.get("PRMERS_MAX_DEVICE_REGS")
     if env:
@@ -197,7 +219,7 @@ def device_reg_budget(n: int, hbm_bytes: int | None = None) -> int:
         if memlim:
             hbm_bytes = int(memlim) << 20
         else:
-            hbm_bytes = int(15.5 * (1 << 30))  # usable HBM of a 16 GB v5e
+            hbm_bytes = device_memory_bytes(device)
     total = int(hbm_bytes * 0.95) // (8 * n)
     # fixed overhead: tables ~5 register-equivalents + XLA transform
     # temporaries ~4-5 + a transient host-transfer buffer. Every primitive

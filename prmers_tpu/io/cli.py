@@ -143,7 +143,7 @@ _NOOP_FLAGS: dict[str, bool] = {
     "-vtrace-negadd-off": False, "-pm1-vtrace-negadd-off": False,
     "--pm1-vtrace-negadd-off": False,
     "-nogcd-stage1-classic": False,
-    # OpenCL / device knobs with no TPU meaning
+    # OpenCL / device knobs with no meaning on the XLA engines
     "-kernelpath": True, "-enqueue_max": True, "-chunk256": False,
     "-l1": True, "-l2": True, "-l3": True, "-l5": True,
     "-tbits": True, "-throttle_low": True,
@@ -192,7 +192,7 @@ def _rewrite_aliases(argv: list[str]) -> tuple[list[str], list[str]]:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="prmers",
-        description="TPU-native Mersenne arithmetic: PRP / LL / P-1 / ECM "
+        description="Mersenne arithmetic on JAX/XLA: PRP / LL / P-1 / ECM "
                     "with Gerbicz-Li error checking and GIMPS proofs")
     ap.add_argument("exponent", nargs="?", type=int, default=0)
     mode = ap.add_mutually_exclusive_group()
@@ -255,7 +255,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Wagstaff PRP (exponent = 2q)")
 
     ap.add_argument("-backend", default="auto",
-                    choices=["auto", "pallas", "jax", "numpy", "sharded"])
+                    choices=["auto", "jax", "numpy", "sharded"])
     ap.add_argument("-arith", default="auto",
                     choices=["auto", "gl64", "fft3161"],
                     help="arithmetic path: Goldilocks (gl64) or the "
@@ -264,7 +264,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="forced transform size (e.g. 8M)")
 
     ap.add_argument("-v", action="version",
-                    version="prmers_tpu (PrMers-compatible TPU framework)")
+                    version="prmers_tpu (PrMers-compatible JAX framework)")
     ap.add_argument("-b1", type=int, default=0)
     ap.add_argument("-b1old", dest="b1_old", type=int, default=0,
                     help="extend P-1 stage 1 from the previous run's "

@@ -16,7 +16,7 @@ import zlib
 
 CHKSUMMOD = 4294967291
 
-PRMERS_TPU_VERSION = "0.1"
+PROGRAM_VERSION = "0.1"
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +164,7 @@ def write_prime95_s1(path: str, p: int, b1: int, x: int,
     de = date_end or ts
     json = (',"programs":[{"work":{"type":"PM1","stage":"1"},'
             '"program":{"name":"prmers","version":"'
-            + PRMERS_TPU_VERSION + '"},"os":{"os":"Linux",'
+            + PROGRAM_VERSION + '"},"os":{"os":"Linux",'
             '"architecture":"x86_64"},"date_start":"' + ds +
             '","date_end":"' + de + '"}]')
     jb = json.encode()

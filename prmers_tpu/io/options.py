@@ -17,7 +17,7 @@ class Options:
     wagstaff: bool = False
 
     # engine / backend
-    backend: str = "auto"        # auto | jax | numpy
+    backend: str = "auto"        # auto | jax | numpy | sharded
     device_id: int = 0
     fft_spec: str = ""           # forced transform size spec ("8M", "5*2^25", ...)
 

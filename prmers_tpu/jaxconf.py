@@ -1,9 +1,11 @@
 """Central JAX configuration for prmers_tpu.
 
 Import this module before any jax.numpy use inside the package. The Goldilocks
-field lives in u64, so x64 mode is mandatory. Note: in some builds the
-JAX_ENABLE_X64 / JAX_PLATFORMS environment variables are ignored; only
-jax.config.update takes effect, which is why this module exists.
+field lives in u64, so x64 mode is mandatory.
+
+Compiled programs persist across processes: in JAX_COMPILATION_CACHE_DIR
+when it is set (JAX reads that variable itself), otherwise in
+<checkout>/.jax_cache.
 """
 
 import os
@@ -12,16 +14,10 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-if os.environ.get("PRMERS_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["PRMERS_PLATFORM"])
-
-# Persistent compilation cache: the big Pallas NTT kernels take minutes to
-# compile; cache them across processes (harmless elsewhere).
-_cache_dir = os.environ.get("PRMERS_JAX_CACHE",
-                            os.path.expanduser("~/.cache/prmers_jax"))
-try:
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-except Exception:  # older jax without these knobs
-    pass
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".jax_cache"))
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

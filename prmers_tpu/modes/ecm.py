@@ -413,7 +413,7 @@ def _run_ecm_batch(opts: Options, log, n: int, K: int, family: str,
                    seed0: int, result: EcmResult, record) -> bool:
     """SPMD curve batching: the whole stage-1 ladder and stage-2 BSGS
     schedule is curve-independent, so K curves run as lanes of ONE
-    batched register file (TPU-first redesign of the reference's
+    batched register file (a redesign of the reference's
     sequential per-curve loop, src/modes/RunEcm.cpp:185). Host-divergent
     events (gcd hits, backtracks, resume export, Prime95 handoff) are
     resolved per lane. Returns False when batching is not worthwhile

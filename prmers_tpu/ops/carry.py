@@ -5,8 +5,9 @@ the low width[j] bits of (y_j * a + carry_in) and forwards the rest. The carry
 out of the last digit wraps to digit 0 (2^p == 1 mod M_p), which performs the
 mod-M_p fold (reference behavior: kernels/marin.cl:1696-2414 two-phase
 carry-weight kernels; here reformulated as vectorized carry-injection rounds —
-each round shifts the carry array by one digit — followed by an exact fixup
-loop, which is the TPU-friendly equivalent of workgroup-scan + block wrap).
+each round shifts the carry array by one digit — followed by a
+carry-lookahead scan, the whole-array equivalent of workgroup-scan + block
+wrap).
 
 Constraint: the small multiplier a must satisfy a < 2^16 so all intermediates
 fit u64 (every call site uses a in {1, 3, ...small}).
@@ -54,15 +55,12 @@ def carry_full(F: FieldOps, y, widths, masks, a, lax=None):
             c, d = inject(c, d)
         return d
 
-    # Device path: the old form looped `inject` until every carry was
-    # zero — one digit of travel per round, so a SATURATED DIGIT RUN
-    # (e.g. the all-ones digits of masks - y after subtracting a small
-    # value, or a register holding M_p - a) rippled a 1 across up to
-    # all n digits: ~n sequential full-vector rounds, which at
-    # n = 2^25 exceeds the TPU worker deadline and KILLS THE WORKER
-    # (measured: 118 s at n = 2^20, tools/settle_probe.py — the r4
-    # MM31 stage-2 'device crash'). Same disease, same cure as the
-    # mesh _ring_carry (parallel/sharded.py): a bounded absorb phase
+    # Device path: looping `inject` until every carry is zero moves a
+    # carry one digit per round, so a SATURATED DIGIT RUN (e.g. the
+    # all-ones digits of masks - y after subtracting a small value, or a
+    # register holding M_p - a) would ripple a 1 across up to all n
+    # digits: ~n sequential full-vector rounds. Same cure as the mesh
+    # carry (parallel/sharded.py _carry_local): a bounded absorb phase
     # shrinks carries geometrically to 0/1 (a saturated run only ever
     # FORWARDS a 1, it cannot grow one), then one generate/propagate
     # associative_scan resolves the 0/1 ripple in O(log n) with the
@@ -79,7 +77,6 @@ def carry_full(F: FieldOps, y, widths, masks, a, lax=None):
     c, d = lax.while_loop(cond, body, (c, d))
 
     # 0/1 ripple via carry-lookahead
-    one = xp.uint64(1)
     s = d + xp.roll(c, 1)              # s <= mask + 1 = 2^width
     g = s > masks                      # generates an out-carry
     p = s == masks                     # propagates an in-carry

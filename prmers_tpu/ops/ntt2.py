@@ -1,6 +1,6 @@
 """Paired GF(M31^2) x GF(M61^2) IBDWT NTT — the second arithmetic path.
 
-TPU analog of the reference's Aevum "FFT3161" backend (reference:
+Analog of the reference's Aevum "FFT3161" backend (reference:
 third_party/aevum/src/FFTConfig.h:24 FFT3161 type, Gpu.cpp square pipeline
 :2987-3035, math.cl GF31/GF61 arithmetic :618-640): the same integer
 convolution is computed mod M31 and mod M61 in the quadratic extensions
@@ -9,8 +9,8 @@ doubles the usable bits-per-word over Goldilocks — roughly half the
 transform size for the same exponent.
 
 v1 is the XLA/numpy correctness path (one full-length DIF column transform
-per plane, generic radix-2/3/4 butterflies over (re, im) pairs); the
-Pallas kernel set follows the same structure later. Supported sizes:
+per plane, generic radix-2/3/4 butterflies over (re, im) pairs).
+Supported sizes:
 n = 2^k, 3*2^k, 9*2^k.
 """
 

@@ -1,9 +1,9 @@
 """Multi-host distribution scaffolding.
 
 The reference is a single-process, single-GPU program (SURVEY.md §5.8);
-this layer is TPU-first and new: `jax.distributed` initialization, a
-global mesh whose `limb` axis spans every chip in the job (ICI within a
-slice, DCN across hosts), host-collective gather/scatter for register
+this layer is new: `jax.distributed` initialization, a global mesh
+whose `limb` axis spans every device in the job (NVLink within a host,
+the network across hosts), host-collective gather/scatter for register
 exchange, and primary-gated checkpoint writes.
 
 Entry points:

@@ -33,26 +33,8 @@ def _reg_digit_rows(eng, r: int):
     """[(start_digit, u64 digits)] for the locally-addressable pieces of
     register r, in canonical digit order, plus the spectral flag.
 
-    Works for any engine whose register r can be exposed as a sharded
-    u64 digit row (ShardedEngine) or a sharded u32 pair + settle
-    (MeshPallasEngine)."""
+    ShardedEngine: regs is (reg_count, n) u64 sharded P(None, limb)."""
     rows = []
-    if hasattr(eng, "_settled"):        # MeshPallasEngine
-        st = eng.regs[r]
-        spectral = bool(st[4])
-        if spectral:
-            x0, x1 = st[0], st[1]
-        else:
-            x0, x1 = eng._settled(r)
-        C = eng.sh[1] * eng.sh[2]
-        for s0, s1 in zip(x0.addressable_shards, x1.addressable_shards):
-            idx = s0.index[0]
-            start = (idx.start or 0) * C
-            lo = np.asarray(s0.data).reshape(-1).astype(np.uint64)
-            hi = np.asarray(s1.data).reshape(-1).astype(np.uint64)
-            rows.append((start, lo | (hi << np.uint64(32))))
-        return rows, spectral
-    # ShardedEngine: regs is (reg_count, n) u64 sharded P(None, limb)
     row = eng.regs[r]
     spectral = r in getattr(eng, "_spec", set())
     for sh in row.addressable_shards:
@@ -219,31 +201,6 @@ def _set_reg_scattered(eng, r: int, reader: _ShardReader,
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
     from .sharded import LIMB
-
-    if hasattr(eng, "_settled"):        # MeshPallasEngine
-        sh3 = eng.sh
-        C = sh3[1] * sh3[2]
-        sharding = NamedSharding(eng.mesh, P(LIMB, None, None))
-
-        def cb_pair(shift):
-            def cb(idx):
-                start = (idx[0].start or 0) * C
-                stop = (idx[0].stop if idx[0].stop is not None
-                        else sh3[0]) * C
-                d = reader.read_range(r, start, stop - start)
-                part = (d >> np.uint64(shift)) & np.uint64(0xFFFFFFFF)
-                return part.astype(np.uint32).reshape(
-                    (idx[0].stop or sh3[0]) - (idx[0].start or 0),
-                    sh3[1], sh3[2])
-            return cb
-
-        lo = jax.make_array_from_callback(sh3, sharding, cb_pair(0))
-        hi = jax.make_array_from_callback(sh3, sharding, cb_pair(32))
-        if spectral:
-            eng.regs[r] = [lo, hi, None, None, True]
-        else:
-            eng.regs[r] = [lo, hi, eng._zc(), eng._zc(), False]
-        return
 
     # ShardedEngine: one (n,) u64 row
     n = eng.get_size()

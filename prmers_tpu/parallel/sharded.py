@@ -1,7 +1,6 @@
 """Explicit shard_map multi-chip squaring: limb-sharded four-step NTT.
 
-The reference is single-GPU (SURVEY.md §2.6); this layer is TPU-first and
-new. Design (per PRP squaring, mesh axis "limb" of size s):
+The reference is single-GPU (SURVEY.md §2.6); this layer is new. Design (per PRP squaring, mesh axis "limb" of size s):
 
   at rest:  digits (n,) sharded contiguously -> local rows block (dR, C)
   P1  local weights mul                         [R-sharded (dR, C)]
@@ -20,8 +19,9 @@ new. Design (per PRP squaring, mesh axis "limb" of size s):
 
 Four all-to-alls per squaring (two are the four-step's global transposes,
 two move between the carry's digit-contiguous rest layout and the
-transform's column sharding). Collectives ride ICI on a real mesh; the
-test suite drives the same code on an 8-virtual-device CPU mesh.
+transform's column sharding). Collectives ride NVLink between the GPUs of
+one host; the test suite drives the same code on an 8-virtual-device CPU
+mesh.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def _carry_local(y, wid, msk, a, s: int, absorb: int = 8):
     per collective round (the adaptive while form needed a round per
     digit of the longest saturated run: sub(x, small) adds the
     all-ones digits of M_p - a, so a sparse x meant ~n ppermute
-    rounds; see mesh_engine._ring_carry for the full account).
+    rounds).
 
       A. `absorb` shifted-add rounds shrink multi-bit carries to <= 1
          (carry magnitude divides by 2^wmin per round; callers size

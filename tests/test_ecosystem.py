@@ -72,7 +72,7 @@ class TestCli:
         assert o.password == "pw"
 
     def test_noop_reference_flags_accepted(self, capsys):
-        """Flags with no TPU meaning parse without error and note the
+        """Flags with no meaning here parse without error and note the
         no-op (kernelpath/local sizes/network submission etc.)."""
         o = parse_args(["9941", "-backend", "numpy", "-gerbiczli",
                         "-proof", "-kernelpath", "/tmp/k", "-l1", "64",

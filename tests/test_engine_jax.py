@@ -125,10 +125,9 @@ class TestCompactWidths:
 
 class TestSaturatedRipple:
     """The device carry_full must resolve a saturated-digit ripple in
-    O(log n), not O(n) ring rounds: the old while-until-zero form walked
-    a 1 across every digit of e.g. masks - small (sub of a small value),
-    blowing the TPU worker deadline at big n (tools/settle_probe.py:
-    118 s at n = 2^20; the r4 MM31 stage-2 'worker crash')."""
+    O(log n), not O(n) ring rounds: a while-until-zero form walks a 1
+    across every digit of e.g. masks - small (sub of a small value),
+    one full-vector round per digit."""
 
     def _lax_vs_np(self, y, widths):
         import jax

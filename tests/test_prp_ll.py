@@ -147,3 +147,26 @@ def test_m11213_interval_res64_stream():
             seen[it] = line.split("Res64:")[1].strip()
     for it, want in golden.items():
         assert seen.get(it) == want, (it, seen.get(it))
+
+
+@pytest.mark.parametrize("from_worktodo", [False, True])
+def test_interrupted_run_writes_no_result(tmp_path, from_worktodo):
+    """An interrupt saves a checkpoint and ends the run: no result line is
+    written and a worktodo entry stays queued for the resume."""
+    from prmers_tpu.core.app import run_app
+    wt = tmp_path / "worktodo.txt"
+    if from_worktodo:
+        wt.write_text("PRP=1,2,9941,-1\n")
+    o = opts_for(0 if from_worktodo else 9941, tmp_path, mode="prp",
+                 checklevel=1, worktodo_path=str(wt),
+                 results_path=str(tmp_path / "results.txt"))
+
+    def stop_at_gl(*a, **k):
+        if "Check passed" in " ".join(map(str, a)):
+            raise KeyboardInterrupt
+
+    assert run_app(o, log=stop_at_gl) == 1
+    assert not (tmp_path / "results.txt").exists()
+    assert (tmp_path / "m_9941.ckpt").exists()
+    if from_worktodo:
+        assert "9941" in wt.read_text()

@@ -96,28 +96,3 @@ class TestShardCkptSharded:
         from prmers_tpu.parallel.sharded import ShardedEngine
         other = ShardedEngine(P1279, 5, mesh8)   # reg_count mismatch
         assert shard_ckpt.load_sharded(other, str(tmp_path / "ck")) is None
-
-
-@pytest.mark.heavy
-class TestShardCkptMeshPallas:
-    def test_mesh_engine_roundtrip_with_pending_carries(self, mesh8,
-                                                        tmp_path,
-                                                        monkeypatch):
-        monkeypatch.setenv("PRMERS_PALLAS_INTERPRET", "1")
-        from prmers_tpu.parallel.mesh_engine import MeshPallasEngine
-        n = 1 << 19
-        p = int(n * 16.2) | 1
-        mp = (1 << p) - 1
-        eng = MeshPallasEngine(p, 3, mesh8, n=n)
-        eng.set(0, 3)
-        eng.square_mul_seq(0, [1, 1])   # leaves deferred row carries
-        eng.set(1, 11)
-        eng.set_multiplicand(2, 1)
-        shard_ckpt.save_sharded(eng, str(tmp_path / "ck"),
-                                {"iteration": 2})
-        eng2 = MeshPallasEngine(p, 3, mesh8, n=n)
-        assert shard_ckpt.load_sharded(eng2, str(tmp_path / "ck")) == \
-            {"iteration": 2}
-        assert eng2.get_int(0) == pow(3, 4, mp)
-        eng2.mul(0, 2)
-        assert eng2.get_int(0) == pow(3, 4, mp) * 11 % mp

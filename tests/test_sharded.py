@@ -135,89 +135,3 @@ class TestShardedOnDeviceOps:
         eng2.set_checkpoint(blob)
         eng2.mul(0, 2)
         assert eng2.get_int(0) == 55555 * 77777 % mp
-
-
-@pytest.mark.heavy
-class TestPallasSharded:
-    """The Pallas pass kernels inside shard_map (interpret mode on the
-    CPU mesh; identical code lowers through Mosaic on a TPU mesh)."""
-
-    def test_pallas_sharded_square_chain(self, mesh8, monkeypatch):
-        monkeypatch.setenv("PRMERS_PALLAS_INTERPRET", "1")
-        from prmers_tpu.parallel.sharded_pallas import PallasShardedStep
-        from prmers_tpu.utils import digits as dg
-
-        n = 1 << 19
-        p = int(n * 16.2) | 1
-        from prmers_tpu.core.plan import cached_plan
-        plan = cached_plan(p, n)
-        mp = (1 << p) - 1
-        st = PallasShardedStep(p, mesh8, n=n)
-        st.set_digits(dg.int_to_digits(3, plan.widths))
-        st.step(3)
-        got = st.get_int()
-        assert got == pow(3, 8, mp)
-
-    def test_pallas_sharded_fast3_chain(self, mesh8, monkeypatch):
-        """The (x^2 * a) PRP iteration over the mesh: a=3 rides the P7
-        carry kernel as the replicated small operand."""
-        monkeypatch.setenv("PRMERS_PALLAS_INTERPRET", "1")
-        from prmers_tpu.parallel.sharded_pallas import PallasShardedStep
-        from prmers_tpu.utils import digits as dg
-
-        n = 1 << 19
-        p = int(n * 16.2) | 1
-        from prmers_tpu.core.plan import cached_plan
-        plan = cached_plan(p, n)
-        mp = (1 << p) - 1
-        st = PallasShardedStep(p, mesh8, n=n)
-        st.set_digits(dg.int_to_digits(3, plan.widths))
-        want = 3
-        for a in (3, 1, 3):
-            st.step(1, a=a)
-            want = want * want * a % mp
-        assert st.get_int() == want
-
-    @pytest.mark.slow
-    def test_pallas_sharded_radix5_chain(self, mesh8, monkeypatch):
-        """A 5-smooth shape (n=5*2^19: R2=40 divides the mesh) through
-        the mesh fast-3 pipeline — the radix-5 MXU stage under
-        shard_map."""
-        monkeypatch.setenv("PRMERS_PALLAS_INTERPRET", "1")
-        from prmers_tpu.parallel.sharded_pallas import PallasShardedStep
-        from prmers_tpu.utils import digits as dg
-
-        n = 5 << 19
-        p = int(n * 16.2) | 1
-        from prmers_tpu.core.plan import cached_plan
-        plan = cached_plan(p, n)
-        mp = (1 << p) - 1
-        st = PallasShardedStep(p, mesh8, n=n)
-        st.set_digits(dg.int_to_digits(3, plan.widths))
-        st.step(2, a=3)
-        want = 3
-        for _ in range(2):
-            want = want * want * 3 % mp
-        assert st.get_int() == want
-
-    def test_pallas_sharded_multiplicand_mul(self, mesh8, monkeypatch):
-        """Engine mul parity on the mesh kernels: prepare a spectral
-        multiplicand with the sharded forward transform, then
-        x <- x * u * a, checked against big-int."""
-        monkeypatch.setenv("PRMERS_PALLAS_INTERPRET", "1")
-        from prmers_tpu.parallel.sharded_pallas import PallasShardedStep
-        from prmers_tpu.utils import digits as dg
-
-        n = 1 << 19
-        p = int(n * 16.2) | 1
-        from prmers_tpu.core.plan import cached_plan
-        plan = cached_plan(p, n)
-        mp = (1 << p) - 1
-        st = PallasShardedStep(p, mesh8, n=n)
-        st.set_digits(dg.int_to_digits(3, plan.widths))
-        st.step(2)                      # x = 3^4
-        u_val = 0x1234567DEADBEEF
-        st.prepare_multiplicand(dg.int_to_digits(u_val, plan.widths))
-        st.mul(a=3)
-        want = pow(3, 4, mp) * u_val * 3 % mp
-        assert st.get_int() == want

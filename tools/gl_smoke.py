@@ -1,7 +1,7 @@
 """GL-window smoke: run each ladder exponent's PRP until its FIRST
 Gerbicz-Li check passes, then stop and move on.
 
-TPU-native analog of the reference's unit_test_all.sh (27 exponents,
+Analog of the reference's unit_test_all.sh (27 exponents,
 each killed after the first "[Gerbicz Li] Check passed" appears in the
 log) — validates every transform size's first verified window without a
 full run. Usage:
